@@ -12,15 +12,15 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import zpix_tpu
-from zpix_tpu.codecs import qoi
+import zpix
+from zpix.codecs import qoi
 
 
 def main(argv):
     if len(argv) != 3 or argv[1] in ("-h", "--help"):
         print(__doc__)
         return 0 if len(argv) == 2 else 1
-    img = zpix_tpu.load(argv[1])
+    img = zpix.load(argv[1])
     rgba = img.rgba_pixels()
     data = qoi.encode(rgba, qoi.Desc(img.width, img.height, 4, 0))
     with open(argv[2], "wb") as f:

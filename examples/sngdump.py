@@ -11,7 +11,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from zpix_tpu.codecs import png
+from zpix.codecs import png
 
 
 def main(argv):

@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import zpix_tpu
+import zpix
 
 
 def render_ansi(rgba: np.ndarray, cols: int) -> str:
@@ -45,7 +45,7 @@ def main():
     ap.add_argument("-w", "--width", type=int, default=80, help="terminal columns")
     args = ap.parse_args()
 
-    img = zpix_tpu.load(args.path)
+    img = zpix.load(args.path)
     rgba = img.rgba_pixels().reshape(img.height, img.width, 4)
     print(f"{args.path}: {img.width}x{img.height} {type(img).__name__}", file=sys.stderr)
 

@@ -8,42 +8,42 @@ import os
 import numpy as np
 import pytest
 
-import zpix_tpu
-from zpix_tpu.errors import UnknownFormat
+import zpix
+from zpix.errors import UnknownFormat
 
 
 def test_dispatch_all_formats(testdata, png_dir):
-    png_img = zpix_tpu.load(os.path.join(png_dir, "basn2c08.png"))
+    png_img = zpix.load(os.path.join(png_dir, "basn2c08.png"))
     assert type(png_img).__name__ == "RGBAImage"
 
-    jpg_img = zpix_tpu.load(os.path.join(testdata, "video-001.jpeg"))
+    jpg_img = zpix.load(os.path.join(testdata, "video-001.jpeg"))
     assert type(jpg_img).__name__ == "YCbCrImage"
 
-    bmp_img = zpix_tpu.load(os.path.join(testdata, "video-001.bmp"))
+    bmp_img = zpix.load(os.path.join(testdata, "video-001.bmp"))
     assert bmp_img.width == 150
 
     # QOI via encode round-trip
-    from zpix_tpu.codecs import qoi
+    from zpix.codecs import qoi
 
     rgba = png_img.rgba_pixels()
     data = qoi.encode(rgba, qoi.Desc(png_img.width, png_img.height, 4, 0))
-    qoi_img = zpix_tpu.from_buffer(data)
+    qoi_img = zpix.from_buffer(data)
     assert np.array_equal(qoi_img.rgba_pixels(), rgba)
 
 
 def test_unknown_format():
     with pytest.raises(UnknownFormat):
-        zpix_tpu.from_buffer(b"\x00\x01\x02\x03 definitely not an image")
+        zpix.from_buffer(b"\x00\x01\x02\x03 definitely not an image")
 
 
 def test_decode_config(testdata):
     with open(os.path.join(testdata, "video-001.jpeg"), "rb") as f:
-        cfg = zpix_tpu.decode_config(f.read())
+        cfg = zpix.decode_config(f.read())
     assert (cfg.width, cfg.height) == (150, 103)
 
 
 def test_drawer():
-    from zpix_tpu.image import Drawer, RGBAImage, Rectangle
+    from zpix.image import Drawer, RGBAImage, Rectangle
 
     img = RGBAImage.init(Rectangle.init(0, 0, 16, 16))
     d = Drawer(img)
@@ -63,10 +63,12 @@ def test_sub_image():
     (per-type subImage, image.zig:153-176; YCbCr deep-copy :557-583)."""
     import numpy as np
 
-    import zpix_tpu
-    from zpix_tpu.image import Rectangle
+    import zpix
+    from tools import corpus
+    from zpix.image import Rectangle
 
-    img = zpix_tpu.load("/root/reference/src/testdata/video-001.png")
+    img = zpix.from_buffer(corpus.png_bytes(corpus.photo(103, 150, 1),
+                                            color_type=2, depth=8))
     full = img.rgba_pixels().reshape(img.height, img.width, 4)
     r = Rectangle.init(17, 9, 101, 77)
     sub = img.sub_image(r)
@@ -78,7 +80,7 @@ def test_sub_image():
     assert empty.width == 0 and empty.height == 0
 
     # YCbCr (odd origin exercises the absolute cOffset alignment)
-    jimg = zpix_tpu.load("/root/reference/src/testdata/video-001.q50.420.jpeg")
+    jimg = zpix.from_buffer(corpus.read("photo0_plain.jpg"))
     jfull = jimg.rgba_pixels().reshape(jimg.height, jimg.width, 4)
     jsub = jimg.sub_image(Rectangle.init(13, 7, 100, 50))
     jgot = jsub.rgba_pixels().reshape(43, 87, 4)
@@ -96,8 +98,8 @@ def test_at_and_set_pixel():
     reads are the zero color and writes are no-ops, as in Go."""
     import numpy as np
 
-    from zpix_tpu.image.geometry import Rectangle
-    from zpix_tpu.image.model import (
+    from zpix.image.geometry import Rectangle
+    from zpix.image.model import (
         GrayImage, Gray16Image, NRGBAImage, RGBAImage, YCbCrImage,
     )
 

@@ -10,8 +10,8 @@ import os
 import numpy as np
 import pytest
 
-from zpix_tpu.codecs import bmp, png
-from zpix_tpu.errors import UnexpectedEof
+from zpix.codecs import bmp, png
+from zpix.errors import UnexpectedEof
 
 PAIRS = [
     "bmp_1bpp",
@@ -52,8 +52,8 @@ def test_batch_bmp_device_parity(testdata):
 
     import numpy as np
 
-    from zpix_tpu.codecs import bmp as bmp_codec
-    from zpix_tpu.parallel.bmp_batch import BatchBmpDecoder
+    from zpix.codecs import bmp as bmp_codec
+    from zpix.parallel.bmp_batch import BatchBmpDecoder
 
     files = sorted(glob.glob(os.path.join(testdata, "*.bmp")))
     assert len(files) >= 6

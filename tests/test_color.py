@@ -7,7 +7,7 @@ agree on exhaustive/boundary inputs.
 
 import numpy as np
 
-from zpix_tpu.color import (
+from zpix.color import (
     cmyk_to_rgba16,
     gray_coeff_luma,
     rgb_to_cmyk,

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from zpix_tpu.errors import UnsupportedError
-from zpix_tpu.parallel.batch import BatchJpegDecoder, parse_coefficients
-from zpix_tpu.parallel.device_entropy import (
+from zpix.errors import UnsupportedError
+from zpix.parallel.batch import BatchJpegDecoder, parse_coefficients
+from zpix.parallel.device_entropy import (
     DeviceJpegDecoder,
     coefficients_to_grids,
     prep_batch,
@@ -113,7 +113,7 @@ def test_ratio_matrix_parity(mode):
 def test_mesh_sharded_decode_parity():
     """Segment lanes shard over the mesh batch axis; output must be
     bit-identical to the unsharded path on the virtual 8-device mesh."""
-    from zpix_tpu.parallel import make_mesh
+    from zpix.parallel import make_mesh
 
     data = _synth_jpeg(w=256, h=128)
     datas = [data] * 8
@@ -127,7 +127,7 @@ def test_mesh_sharded_decode_parity():
 
 
 def test_mesh_lane_mismatch_raises():
-    from zpix_tpu.parallel import make_mesh
+    from zpix.parallel import make_mesh
 
     data = _synth_jpeg(w=40, h=24)  # few segments
     mesh = make_mesh()
@@ -199,7 +199,7 @@ def test_mesh_packed_decode_parity():
     """The single-buffer (packed) upload must compose with the mesh:
     per-device [stream ++ local offsets] rows under shard_map, bit-equal
     to both the unsharded packed path and the 3-array mesh path."""
-    from zpix_tpu.parallel import make_mesh
+    from zpix.parallel import make_mesh
 
     data = _synth_jpeg(w=256, h=128)
     datas = [data] * 8
@@ -237,10 +237,10 @@ def _synth_cmyk(transform=None, w=96, h=80):
 def test_onchip_cmyk_ycck_parity(transform, label):
     """4-component frames decode fully on-chip with host parity through
     both applyBlack arms (decoder.zig:792-902)."""
-    import zpix_tpu.codecs.jpeg as jpeg_codec
+    import zpix.codecs.jpeg as jpeg_codec
 
     data = _synth_cmyk(transform)
-    from zpix_tpu.parallel.batch import parse_coefficients
+    from zpix.parallel.batch import parse_coefficients
 
     assert parse_coefficients(data).color == label
     out, ok = DeviceJpegDecoder().decode([data, data])
@@ -255,7 +255,7 @@ def test_onchip_rgb_parity():
     """RGB-colorspace JPEG (convertToRGB, decoder.zig:751-783) on-chip."""
     import io
 
-    import zpix_tpu.codecs.jpeg as jpeg_codec
+    import zpix.codecs.jpeg as jpeg_codec
     from PIL import Image
 
     rgb = (np.arange(96 * 80 * 3) % 253).astype(np.uint8).reshape(80, 96, 3)
@@ -289,7 +289,7 @@ def test_host_index_restart_free_parity(testdata):
     """Restart-free streams (the case where speculative sync is provably
     serial): host C++ index pass + device value pass must reproduce the
     host batch decoder exactly, including the pass-2 offset verification."""
-    from zpix_tpu.parallel.device_entropy import HostIndexJpegDecoder
+    from zpix.parallel.device_entropy import HostIndexJpegDecoder
 
     with open(os.path.join(testdata, "video-001.jpeg"), "rb") as f:
         data = f.read()
@@ -301,7 +301,7 @@ def test_host_index_restart_free_parity(testdata):
 
 
 def test_host_index_rejects_restart_streams(restart_jpeg):
-    from zpix_tpu.parallel.device_entropy import prep_batch_host_index
+    from zpix.parallel.device_entropy import prep_batch_host_index
 
     with pytest.raises(UnsupportedError):
         prep_batch_host_index([restart_jpeg])

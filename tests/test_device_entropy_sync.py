@@ -12,9 +12,9 @@ import os
 import numpy as np
 import pytest
 
-from zpix_tpu.errors import UnsupportedError
-from zpix_tpu.parallel.batch import BatchJpegDecoder
-from zpix_tpu.parallel.device_entropy_sync import (
+from zpix.errors import UnsupportedError
+from zpix.parallel.batch import BatchJpegDecoder
+from zpix.parallel.device_entropy_sync import (
     SyncJpegDecoder,
     prep_batch_sync,
 )
@@ -129,7 +129,7 @@ def test_cmyk_and_rgb_parity(testdata):
     decoder.zig:699-902)."""
     import io
 
-    import zpix_tpu.codecs.jpeg as jpeg_codec
+    import zpix.codecs.jpeg as jpeg_codec
     from PIL import Image
 
     rgb = (np.arange(64 * 48 * 3) % 253).astype(np.uint8).reshape(48, 64, 3)

@@ -3,7 +3,7 @@
 SURVEY.md section 4 names single-host multi-device CPU emulation as the
 fake backend; this goes one rung further and spawns TWO OS processes
 coordinated by jax.distributed — the same initialize / local_shard /
-host_local_batch path a real 2-host TPU pod slice launch uses, minus the
+host_local_batch path a real 2-host launch uses, minus the
 DCN.  Each process decodes its local shard of the batch, assembles the
 global sharded array, runs the jitted back-end over the global mesh, and
 verifies its addressable output shards against the single-process decode.
@@ -31,8 +31,8 @@ import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from zpix_tpu.parallel import distributed
-from zpix_tpu.parallel.batch import parse_coefficients, _ycbcr_graph
+from zpix.parallel import distributed
+from zpix.parallel.batch import parse_coefficients, _ycbcr_graph
 
 ok = distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=nproc, process_id=pid

@@ -1,6 +1,6 @@
 """Batched + sharded decode on the virtual 8-device CPU mesh.
 
-The single-host multi-device stand-in for a TPU pod slice (SURVEY.md
+The single-host multi-device stand-in for a multi-device host (SURVEY.md
 sec.4): batch sharding (dp) and block-row stripe sharding (the
 sequence-parallel analog) must both produce bit-exact output vs the host
 decoder.
@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from zpix_tpu.codecs import jpeg
-from zpix_tpu.color import ycbcr_to_rgb8
-from zpix_tpu.parallel import BatchJpegDecoder, make_mesh
+from zpix.codecs import jpeg
+from zpix.color import ycbcr_to_rgb8
+from zpix.parallel import BatchJpegDecoder, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +85,7 @@ def test_batch_packed_parity(jpeg_420, want_rgb):
 
 
 def test_pack_sparse_roundtrip(jpeg_420):
-    from zpix_tpu.parallel.batch import pack_sparse, parse_coefficients
+    from zpix.parallel.batch import pack_sparse, parse_coefficients
 
     fe = parse_coefficients(jpeg_420)
     for c in range(3):
@@ -101,8 +101,8 @@ def test_pack_sparse_roundtrip(jpeg_420):
 def test_native_flat_batch_parity(jpeg_420, want_rgb):
     """Native whole-batch front-end + single-buffer transfer + device
     carve/unpack/permute must decode bit-identically."""
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.batch import (
+    from zpix import runtime
+    from zpix.parallel.batch import (
         NativeBatchFrontEnd,
         decode_batch_ycbcr_flat,
     )
@@ -135,8 +135,8 @@ def test_parse_packed_native_corpus(testdata):
     front-end's grid-order coefficients on every baseline corpus file."""
     import glob
 
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.batch import parse_coefficients, parse_packed_native
+    from zpix import runtime
+    from zpix.parallel.batch import parse_coefficients, parse_packed_native
 
     if runtime.get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -163,8 +163,8 @@ def test_parse_packed_native_corpus(testdata):
 def test_restart_segment_parallel_decode(testdata):
     """Intra-image restart-segment parallel scan (the sequence-parallel
     analog) must produce byte-identical packed output."""
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.batch import parse_packed_native
+    from zpix import runtime
+    from zpix.parallel.batch import parse_packed_native
 
     if runtime.get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -181,7 +181,7 @@ def test_restart_segment_parallel_decode(testdata):
 def test_progressive_batched_decode(testdata):
     """Progressive streams flow through the batch pipeline (Python
     front-end + native per-SOS scans) bit-exactly."""
-    from zpix_tpu.color import ycbcr_to_rgb8
+    from zpix.color import ycbcr_to_rgb8
 
     with open(
         os.path.join(testdata, "video-001.q50.420.progressive.jpeg"), "rb"
@@ -218,8 +218,8 @@ PNG_BATCH_CASES = [
 
 @pytest.mark.parametrize("depth,rel", PNG_BATCH_CASES)
 def test_batch_png_parity(testdata, depth, rel):
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     with open(os.path.join(testdata, rel), "rb") as f:
         data = f.read()
@@ -231,7 +231,7 @@ def test_batch_png_parity(testdata, depth, rel):
 
 
 def test_batch_png_empty_batch(testdata):
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     with pytest.raises(ValueError, match="empty batch"):
         BatchPngDecoder().decode([])
@@ -280,9 +280,9 @@ def test_batch_png_colorkey_parity():
     front-ends, vs the golden-validated host decode (key scaling and
     16-bit pre-truncation compare semantics, decoder.zig:547-576).
     Batches mix keyed and unkeyed images to prove per-image keys."""
-    from zpix_tpu import runtime
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix import runtime
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     rng = np.random.default_rng(7)
     cases = []
@@ -346,8 +346,8 @@ def test_batch_png_device_defilter_parity(testdata, depth, rel):
     """The on-chip wavefront defilter (ops/defilter.py) must reproduce
     the golden-validated host decode byte-for-byte on the full depth
     matrix (reference filter semantics decoder.zig:806-842)."""
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     with open(os.path.join(testdata, rel), "rb") as f:
         data = f.read()
@@ -366,8 +366,8 @@ def test_batch_cmyk_ycck_rgb_parity(testdata):
 
     from PIL import Image
 
-    from zpix_tpu.codecs import jpeg as jpeg_codec
-    from zpix_tpu.parallel.batch import BatchJpegDecoder
+    from zpix.codecs import jpeg as jpeg_codec
+    from zpix.parallel.batch import BatchJpegDecoder
 
     cases = ["video-001.cmyk.jpeg"]
     datas = {}
@@ -396,8 +396,8 @@ def test_batch_png_interlaced_parity(testdata, png_dir):
     parity (mergePassInto, decoder.zig:1289-1373)."""
     import glob
 
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     files = sorted(glob.glob(os.path.join(png_dir, "*i.png")))[:4]
     assert files, "no interlaced pngsuite files found"
@@ -414,8 +414,8 @@ def test_batch_png_interlaced_parity(testdata, png_dir):
 def test_decode_pipeline_overlap_parity():
     """The reusable overlapped pipeline (parallel/pipeline.py) yields
     exactly the per-batch decode results, in order."""
-    from zpix_tpu.parallel.device_entropy import DeviceJpegDecoder
-    from zpix_tpu.parallel.pipeline import (
+    from zpix.parallel.device_entropy import DeviceJpegDecoder
+    from zpix.parallel.pipeline import (
         jpeg_onchip_pipeline,
         qoi_onchip_pipeline,
     )
@@ -442,14 +442,14 @@ def test_decode_pipeline_overlap_parity():
         assert np.array_equal(np.asarray(out), np.asarray(ref))
 
     # QOI arm shares the same pipeline machinery
-    from zpix_tpu.codecs.qoi.encode import Desc, encode
+    from zpix.codecs.qoi.encode import Desc, encode
 
     rng = np.random.default_rng(5)
     imgs = [rng.integers(0, 256, (16, 24, 4), dtype=np.uint8) for _ in range(4)]
     qbatches = [[encode(a, Desc(24, 16, 4, 0)) for a in imgs[i : i + 2]]
                 for i in (0, 2)]
     qgot = list(qoi_onchip_pipeline().map(qbatches))
-    from zpix_tpu.codecs.qoi.decode import decode as qhost
+    from zpix.codecs.qoi.decode import decode as qhost
 
     for b, (out, ok) in zip(qbatches, qgot):
         assert bool(ok)
@@ -463,8 +463,8 @@ def test_batch_png_palette_overflow_parity():
     import struct
     import zlib as _zlib
 
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     def chunk(tag, payload):
         c = struct.pack(">I", len(payload)) + tag + payload
@@ -500,9 +500,9 @@ def test_batch_png_device_inflate_parity(testdata, depth, rel):
     fused with the wavefront defilter and expansion — byte parity with
     the golden-validated host decode (inflate semantics of
     std.compress.flate, decoder.zig:513-518)."""
-    from zpix_tpu import runtime
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix import runtime
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     if runtime.get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -520,9 +520,9 @@ def test_batch_png_device_inflate_interlaced(testdata, png_dir):
     per-pass defilter/expand -> strided scatter merge in one graph."""
     import glob
 
-    from zpix_tpu import runtime
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix import runtime
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     if runtime.get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -543,10 +543,10 @@ def test_batch_png_device_inflate_interlaced(testdata, png_dir):
 def test_batch_png_device_inflate_sharded(testdata):
     """Token upload shards on the batch mesh axis; the vmapped resolve
     keeps every image's copy chains inside its own lane."""
-    from zpix_tpu import runtime
-    from zpix_tpu.codecs import png as png_codec
-    from zpix_tpu.parallel.mesh import make_mesh
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder
+    from zpix import runtime
+    from zpix.codecs import png as png_codec
+    from zpix.parallel.mesh import make_mesh
+    from zpix.parallel.png_batch import BatchPngDecoder
 
     if runtime.get_lib() is None:
         pytest.skip("native runtime unavailable")
@@ -572,7 +572,7 @@ def test_batch_png_rejects_mixed_interlace(png_dir):
 
     from PIL import Image
 
-    from zpix_tpu.parallel.png_batch import BatchPngDecoder, _walk_idat
+    from zpix.parallel.png_batch import BatchPngDecoder, _walk_idat
 
     with open(os.path.join(png_dir, "basn3p04-31i.png"), "rb") as f:
         inter = f.read()
@@ -597,9 +597,9 @@ def test_decode_mixed_corpus():
     host rgba_pixels flatten."""
     import glob
 
-    import zpix_tpu
-    from zpix_tpu.codecs.qoi.encode import Desc, encode
-    from zpix_tpu.parallel.bucketing import load_batch, plan_buckets
+    import zpix
+    from zpix.codecs.qoi.encode import Desc, encode
+    from zpix.parallel.bucketing import load_batch, plan_buckets
 
     td = "/root/reference/src/testdata"
     paths = [
@@ -622,7 +622,7 @@ def test_decode_mixed_corpus():
         with open(p, "rb") as f:
             bufs.append(f.read())
     # one QOI leg (no .qoi files in the corpus): encode a decoded image
-    img = zpix_tpu.load(paths[5])
+    img = zpix.load(paths[5])
     px = np.asarray(img.rgba_pixels(), np.uint8).reshape(
         img.height, img.width, 4
     )
@@ -633,7 +633,7 @@ def test_decode_mixed_corpus():
     kinds = {k[0] for k in buckets}
     assert kinds == {"png", "jpeg", "bmp", "qoi"}
 
-    from zpix_tpu.parallel.bucketing import decode_mixed
+    from zpix.parallel.bucketing import decode_mixed
 
     outs, stats = decode_mixed(bufs[:-1], return_stats=True)
     assert load_batch(paths)[0].shape == outs[0].shape  # path API parity
@@ -646,7 +646,7 @@ def test_decode_mixed_corpus():
     outs.append(qout[0])
     for p, out in zip(paths + ["<qoi>"], outs):
         data = bufs[(paths + ["<qoi>"]).index(p)]
-        ref = zpix_tpu.from_buffer(data)
+        ref = zpix.from_buffer(data)
         want = np.asarray(ref.rgba_pixels(), np.uint8).reshape(
             ref.height, ref.width, 4
         )
@@ -657,8 +657,8 @@ def test_decode_mixed_corpus():
 def test_decode_mixed_min_batch_host_fallback(png_dir):
     """min_batch > bucket size must route through the host decoder and
     still return identical pixels (no device compile for one-off shapes)."""
-    import zpix_tpu
-    from zpix_tpu.parallel.bucketing import decode_mixed
+    import zpix
+    from zpix.parallel.bucketing import decode_mixed
 
     with open(os.path.join(png_dir, "basn2c08.png"), "rb") as f:
         a = f.read()
@@ -667,7 +667,7 @@ def test_decode_mixed_min_batch_host_fallback(png_dir):
     outs, stats = decode_mixed([a, b], min_batch=3, return_stats=True)
     assert stats == {"host-small": 2}, stats  # no silent device attempts
     for data, out in zip((a, b), outs):
-        img = zpix_tpu.from_buffer(data)
+        img = zpix.from_buffer(data)
         want = np.asarray(img.rgba_pixels(), np.uint8).reshape(
             img.height, img.width, 4
         )
@@ -677,8 +677,8 @@ def test_decode_mixed_min_batch_host_fallback(png_dir):
 def test_decode_mixed_broken_decoder_not_swallowed(monkeypatch, png_dir):
     """A batched decoder that raises must be VISIBLE (host-error route +
     logged) — regression guard for the round-3 silent `except: pass`."""
-    import zpix_tpu
-    from zpix_tpu.parallel import bucketing, png_batch
+    import zpix
+    from zpix.parallel import bucketing, png_batch
 
     class Boom:
         def __init__(self, **kw):
@@ -692,7 +692,7 @@ def test_decode_mixed_broken_decoder_not_swallowed(monkeypatch, png_dir):
         a = f.read()
     outs, stats = bucketing.decode_mixed([a], return_stats=True)
     assert stats == {"host-error": 1}, stats
-    img = zpix_tpu.from_buffer(a)
+    img = zpix.from_buffer(a)
     want = np.asarray(img.rgba_pixels(), np.uint8).reshape(
         img.height, img.width, 4
     )
@@ -702,14 +702,12 @@ def test_decode_mixed_broken_decoder_not_swallowed(monkeypatch, png_dir):
 def test_roofline_cost_model_sanity():
     """The analytic cost model must scale with batch and produce the
     report lines the bench prints (SURVEY sec.5 accounting promise)."""
-    from zpix_tpu.parallel.device_entropy import prep_batch
-    from zpix_tpu.utils import roofline as rl
+    from zpix.parallel.device_entropy import prep_batch
+    from zpix.utils import roofline as rl
 
-    with open(
-        os.path.join("/root/reference/src/testdata",
-                     "video-001.restart2.jpeg"), "rb"
-    ) as f:
-        data = f.read()
+    from tools import corpus
+
+    data = corpus.read("420_dri.jpg")
     p1 = prep_batch([data])
     p2 = prep_batch([data, data])
     c1 = rl.jpeg_onchip_costs(p1, k_syms=16, k1_syms=24, w_words=6,
@@ -718,7 +716,7 @@ def test_roofline_cost_model_sanity():
                               w1_words=8, steps1=10, steps2=2)
     for a, b in zip(c1, c2):
         assert b.bytes_moved > a.bytes_moved
-        assert b.vpu_ops > a.vpu_ops
-    rep = rl.report(c1, [1.0, 2.0, 3.0], total_ms=6.0,
-                    link_bytes=1e6, link_ms=10.0)
-    assert "% HBM" in rep and "% VPU" in rep and "link (H2D)" in rep
+        assert b.int_ops > a.int_ops
+    rep = rl.report(c1, [1.0, 2.0, 3.0], "NVIDIA H100 80GB HBM3",
+                    total_ms=6.0)
+    assert "% HBM" in rep and "% INT32" in rep and "TOTAL" in rep

@@ -11,7 +11,7 @@ import os
 
 import pytest
 
-from zpix_tpu.codecs import png
+from zpix.codecs import png
 
 FILENAMES = [
     "basn0g01",
@@ -94,7 +94,7 @@ def test_crc_mismatch_rejected(png_dir):
     with open(os.path.join(png_dir, "basn0g08.png"), "rb") as f:
         data = bytearray(f.read())
     data[-5] ^= 0xFF  # corrupt IEND CRC
-    import zpix_tpu.errors as errors
+    import zpix.errors as errors
 
     with pytest.raises(errors.ChecksumError):
         png.decode(bytes(data))

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from zpix_tpu.errors import UnsupportedError
-from zpix_tpu.parallel.batch import BatchJpegDecoder
-from zpix_tpu.parallel.progressive import DeviceProgressiveDecoder
+from zpix.errors import UnsupportedError
+from zpix.parallel.batch import BatchJpegDecoder
+from zpix.parallel.progressive import DeviceProgressiveDecoder
 
 PROGRESSIVE = [
     "video-001.progressive.jpeg",

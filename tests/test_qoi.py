@@ -12,8 +12,8 @@ import struct
 import numpy as np
 import pytest
 
-from zpix_tpu.codecs import png, qoi
-from zpix_tpu.errors import FormatError
+from zpix.codecs import png, qoi
+from zpix.errors import FormatError
 
 IMAGES = ["basn2c08", "basn6a08", "basn3p08", "basn0g08"]
 
@@ -93,8 +93,8 @@ def test_encode_vec_byte_identical():
     counts."""
     import numpy as np
 
-    from zpix_tpu.codecs.qoi.encode import Desc, encode
-    from zpix_tpu.codecs.qoi.encode_vec import encode_vec
+    from zpix.codecs.qoi.encode import Desc, encode
+    from zpix.codecs.qoi.encode_vec import encode_vec
 
     rng = np.random.default_rng(0)
     cases = []

@@ -9,10 +9,10 @@ exercise every op and the stream-exhausted fill path.
 import numpy as np
 import pytest
 
-from zpix_tpu.codecs.qoi.decode import decode as host_decode
-from zpix_tpu.codecs.qoi.encode import Desc, encode
-from zpix_tpu.errors import UnsupportedError
-from zpix_tpu.parallel.qoi_batch import BatchQoiDecoder, prep_qoi_batch
+from zpix.codecs.qoi.decode import decode as host_decode
+from zpix.codecs.qoi.encode import Desc, encode
+from zpix.errors import UnsupportedError
+from zpix.parallel.qoi_batch import BatchQoiDecoder, prep_qoi_batch
 
 
 def _images(w=40, h=24, seed=0):
@@ -106,16 +106,15 @@ def test_device_qoi_ops_cap_overflow_exact():
 
 
 def test_device_qoi_carry_guard():
-    """The pre-dispatch guard must refuse carries below the measured
-    ~400 MB worker-fault threshold, and decode_verified must fall back
-    to the host decoder instead of dispatching."""
-    from zpix_tpu.parallel.qoi_batch import carry_bytes
+    """The pre-dispatch guard must refuse a carry over the budget, and
+    decode_verified must fall back to the host decoder instead of
+    dispatching."""
+    from zpix.parallel.qoi_batch import carry_bytes
 
     datas = [_enc(_images()[3])]
     plan = prep_qoi_batch(datas, 32)
     need = carry_bytes(plan)
     dec = BatchQoiDecoder(chunk_bytes=32, carry_mb=need / 2e6)
-    assert dec.carry_mb * 1e6 < 400e6  # guard sits below the fault point
     with pytest.raises(UnsupportedError):
         dec.decode(datas)
     out = dec.decode_verified(datas)
@@ -126,7 +125,7 @@ def test_encode_device_byte_identical():
     """On-device encoder must emit byte-identical streams to the serial
     emission (encoder.zig:29-132 semantics) over every op class, both
     channel counts, and the end-of-stream run flush."""
-    from zpix_tpu.parallel.qoi_batch import encode_device
+    from zpix.parallel.qoi_batch import encode_device
 
     rng = np.random.default_rng(7)
     h, w = 24, 40
@@ -148,7 +147,7 @@ def test_encode_device_byte_identical():
 def test_encode_device_batch_roundtrip():
     """vmapped batch encode: byte-identical per image, and the streams
     decode back to the input pixels (lossless roundtrip)."""
-    from zpix_tpu.parallel.qoi_batch import encode_device_batch
+    from zpix.parallel.qoi_batch import encode_device_batch
 
     imgs = _images()
     h, w = imgs[0].shape[:2]
@@ -165,7 +164,7 @@ def test_device_qoi_sharded_parity():
     must decode bit-identically to the host."""
     import jax
 
-    from zpix_tpu.parallel.mesh import make_mesh
+    from zpix.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -183,7 +182,7 @@ def test_device_qoi_sharded_parity():
 def test_encode_device_edge_sizes():
     """1-pixel images, exact 62-run caps, and 63-run remainders hit the
     encoder's flush edge cases (encoder.zig:88-95)."""
-    from zpix_tpu.parallel.qoi_batch import encode_device
+    from zpix.parallel.qoi_batch import encode_device
 
     cases = [
         np.full((1, 1, 4), 9, np.uint8),          # single pixel
@@ -209,7 +208,7 @@ def test_encode_device_edge_sizes():
 
 
 def test_hostindex_qoi_parity():
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     datas = [_enc(i) for i in _images()]
     out = np.asarray(HostIndexQoiDecoder().decode(datas))
@@ -220,8 +219,8 @@ def test_hostindex_qoi_parity():
 def test_hostindex_record_scan_native_vs_python():
     """The C++ and Python record scans must agree field-for-field
     (same rule as the JPEG native-vs-python scan differential)."""
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.qoi_batch import (
+    from zpix import runtime
+    from zpix.parallel.qoi_batch import (
         _record_scan_native,
         _record_scan_py,
     )
@@ -243,9 +242,9 @@ def test_record_scan_py_short_stream_matches_native():
     """A stream shorter than header+padding must raise FormatError in
     BOTH scans (native rc=1) — the Python twin may not IndexError or
     silently return (native-vs-python differential invariant)."""
-    from zpix_tpu import runtime
-    from zpix_tpu.errors import FormatError
-    from zpix_tpu.parallel.qoi_batch import (
+    from zpix import runtime
+    from zpix.errors import FormatError
+    from zpix.parallel.qoi_batch import (
         _record_scan_native,
         _record_scan_py,
     )
@@ -263,8 +262,8 @@ def test_lane_scan_py_rejects_int16_overflow_lane_p():
     """lane entries carry int16 local spans: P > 32767 must raise
     UnsupportedError (mirrors native rc=4), never silently wrap; and
     prep_qoi_lanes clamps an oversized P before dispatch."""
-    from zpix_tpu.errors import UnsupportedError
-    from zpix_tpu.parallel.qoi_batch import _lane_scan_py, prep_qoi_lanes
+    from zpix.errors import UnsupportedError
+    from zpix.parallel.qoi_batch import _lane_scan_py, prep_qoi_lanes
 
     data = _enc(_images()[0])
     with pytest.raises(UnsupportedError):
@@ -279,7 +278,7 @@ def test_lane_scan_py_rejects_int16_overflow_lane_p():
 def test_hostindex_p4_parity_and_half_bytes():
     """The packed (r,g,b,start) lane format must decode bit-identically
     to the wide form on opaque content, at HALF the staged bytes."""
-    from zpix_tpu.parallel.qoi_batch import (
+    from zpix.parallel.qoi_batch import (
         HostIndexQoiDecoder,
         prep_qoi_lanes,
         prep_qoi_lanes4,
@@ -304,7 +303,7 @@ def test_hostindex_p4_parity_and_half_bytes():
 def test_hostindex_p4_auto_falls_back_on_alpha():
     """lane_fmt='auto' must fall back to the wide form (exactly, not
     wrongly) when the stream carries non-opaque colors."""
-    from zpix_tpu.parallel.qoi_batch import (
+    from zpix.parallel.qoi_batch import (
         HostIndexQoiDecoder,
         prep_qoi_lanes4,
     )
@@ -323,8 +322,8 @@ def test_hostindex_p4_auto_falls_back_on_alpha():
 def test_hostindex_p4_native_vs_python():
     """The C++ fill4 and the Python assembly must produce identical
     packed arrays (native-vs-python differential invariant)."""
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.qoi_batch import _lane_scan_py, prep_qoi_lanes4
+    from zpix import runtime
+    from zpix.parallel.qoi_batch import _lane_scan_py, prep_qoi_lanes4
 
     lib = runtime.get_lib()
     if lib is None or not hasattr(lib, "zpix_qoi_lane_fill4"):
@@ -352,7 +351,7 @@ def test_hostindex_p4_native_vs_python():
 def test_hostindex_qoi_truncated_fill():
     """Stream exhausts early -> remaining pixels replicate the final
     decoder px (decoder.zig:67-69), applied as the device fill color."""
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     data = _enc(_images()[3])
     t = data[: len(data) // 2] + b"\x00" * 8
@@ -364,7 +363,7 @@ def test_hostindex_qoi_truncated_fill():
 def test_hostindex_qoi_run_clip_at_pixel_count():
     """A RUN op crossing pixel_count is clipped exactly (the reference's
     per-pixel loop just stops; record counts must not overrun)."""
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     img = np.full((6, 11, 4), 200, np.uint8)  # 66 px: 62-run + 4-run
     data = _enc(img)
@@ -375,7 +374,7 @@ def test_hostindex_qoi_run_clip_at_pixel_count():
 def test_hostindex_qoi_shared_layout_cache():
     """Different batches reuse one compiled expansion program when the
     record cap buckets to the same layout."""
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     dec = HostIndexQoiDecoder()
     imgs = _images()
@@ -387,8 +386,8 @@ def test_hostindex_qoi_shared_layout_cache():
 def test_hostindex_qoi_sharded_parity():
     import jax
 
-    from zpix_tpu.parallel.mesh import make_mesh
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.mesh import make_mesh
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -402,9 +401,9 @@ def test_hostindex_qoi_sharded_parity():
 
 def test_lane_scan_native_vs_python():
     """C++ vs Python lane-entry scans agree field-for-field at several
-    lane widths (the lane split is the TPU-fast expansion format)."""
-    from zpix_tpu import runtime
-    from zpix_tpu.parallel.qoi_batch import _lane_scan_native, _lane_scan_py
+    lane widths (the lane split is the gather-free expansion format)."""
+    from zpix import runtime
+    from zpix.parallel.qoi_batch import _lane_scan_native, _lane_scan_py
 
     lib = runtime.get_lib()
     if lib is None or not hasattr(lib, "zpix_qoi_lane_scan"):
@@ -422,7 +421,7 @@ def test_lane_scan_native_vs_python():
 def test_hostindex_lane_parity_and_widths():
     """Lane expansion (gather-free compare-mask) is bit-exact across
     lane widths, including a truncated stream's fill tail."""
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     datas = [_enc(i) for i in _images()]  # 40x24 = 960 px
     ref = np.stack([host_decode(d).pix for d in datas])
@@ -437,7 +436,7 @@ def test_hostindex_lane_parity_and_widths():
 def test_hostindex_lane_nondivisor_width_autoshrinks():
     """A lane width that does not divide the pixel count shrinks to the
     largest divisor (layout must tile the raster exactly)."""
-    from zpix_tpu.parallel.qoi_batch import prep_qoi_lanes
+    from zpix.parallel.qoi_batch import prep_qoi_lanes
 
     data = _enc(_images()[0])  # 960 px
     plan = prep_qoi_lanes([data], P=7)
@@ -447,8 +446,8 @@ def test_hostindex_lane_nondivisor_width_autoshrinks():
 def test_hostindex_lane_sharded_parity():
     import jax
 
-    from zpix_tpu.parallel.mesh import make_mesh
-    from zpix_tpu.parallel.qoi_batch import HostIndexQoiDecoder
+    from zpix.parallel.mesh import make_mesh
+    from zpix.parallel.qoi_batch import HostIndexQoiDecoder
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

@@ -1,38 +1,37 @@
 #!/usr/bin/env python3
-"""Dump the optimized HLO of the fused on-chip decode for layout/fusion
-inspection (compile only — nothing executes on the chip)."""
+"""Dump the optimized HLO of the fused on-device JPEG decode for layout and
+fusion inspection (compile only; nothing executes).
 
-import faulthandler
+    python tools/dump_hlo.py            # writes fused.hlo
+
+Env: BENCH_BATCH (16), HLO_OUT.
+"""
+
 import os
 import sys
 
-faulthandler.dump_traceback_later(int(os.environ.get("HLO_WATCHDOG_S", "1800")), exit=True)
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/zpix_jax_cache")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-from bench import make_bench_jpeg  # noqa: E402
+from tools import corpus  # noqa: E402
 
 
 def main():
     import jax
 
-    from zpix_tpu.parallel.device_entropy import DeviceJpegDecoder, prep_batch
+    from zpix.parallel.device_entropy import DeviceJpegDecoder, prep_batch
+    from zpix.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     batch = int(os.environ.get("BENCH_BATCH", "16"))
-    size = int(os.environ.get("BENCH_SIZE", "1024"))
-    dri = int(os.environ.get("BENCH_DRI", "4"))
-    pool = [make_bench_jpeg(size, seed=j, dri_blocks=dri) for j in range(batch)]
-    plan = prep_batch(pool)
-    dec = DeviceJpegDecoder()
-    fn = dec._fused(plan)
-    lowered = fn.lower(*(jax.ShapeDtypeStruct(b.shape, b.dtype) for b in
-                         [type("S", (), {"shape": plan.packed.shape, "dtype": plan.packed.dtype})]))
-    compiled = lowered.compile()
-    txt = compiled.as_text()
-    out = os.environ.get("HLO_OUT", "/tmp/fused.hlo")
+    plan = prep_batch(corpus.large_batch("dri8", batch))
+    fn = DeviceJpegDecoder()._fused(plan)
+    spec = jax.ShapeDtypeStruct(plan.packed.shape, plan.packed.dtype)
+    txt = fn.lower(spec).compile().as_text()
+    out = os.environ.get("HLO_OUT", "fused.hlo")
     with open(out, "w") as f:
         f.write(txt)
-    print(f"wrote {len(txt)/1e6:.1f} MB to {out}")
+    print(f"wrote {len(txt) / 1e6:.1f} MB to {out}")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Stage profile of the restart-free (speculative-sync) JPEG decoder.
+"""Stage profile of the restart-free speculative-sync JPEG decoder.
 
-The staged sync bench measured ~420 ms/batch of pure device compute
-(bench_logs/RESULTS.md) — this attributes it: times the _stage
-truncations of build_sync_decode_fn (1 = sync rounds, 2 = + record
-scan, 3 = + assembly, 4 = full incl. value pass + DC restore) with the
-digest-chain honesty rules, and prints the converged round count.
+Times the _stage truncations of build_sync_decode_fn (1 = sync rounds,
+2 = + record scan, 3 = + assembly, 4 = full incl. value pass + DC
+restore) on one batch of the committed restart-free 1024² JPEGs, and
+prints the converged round count.  Every timing ends in
+block_until_ready.
 
-Env: PROF_STEPS (4), BENCH_BATCH (16), BENCH_SIZE (1024),
-BENCH_SYNC_CHUNK (256).
+    python tools/profile_sync.py
+
+Env: PROF_STEPS (4), BENCH_BATCH (16), BENCH_SYNC_CHUNK (256).
 """
 
 import os
@@ -17,88 +18,52 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import faulthandler
-
-faulthandler.dump_traceback_later(
-    int(os.environ.get("PROF_WATCHDOG_S", "2400")), exit=True
-)
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/zpix_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "5")
-
-from bench import make_digest, make_pools  # noqa: E402
+from tools import corpus  # noqa: E402
 
 
 def main():
     import jax
-    import jax.numpy as jnp
 
-    from zpix_tpu.parallel.device_entropy_sync import (
+    from zpix.parallel.device_entropy_sync import (
         build_sync_decode_fn,
         prep_batch_sync,
     )
+    from zpix.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     batch = int(os.environ.get("BENCH_BATCH", "16"))
-    size = int(os.environ.get("BENCH_SIZE", "1024"))
     steps = int(os.environ.get("PROF_STEPS", "4"))
     cb = int(os.environ.get("BENCH_SYNC_CHUNK", "256"))
-    mpix = batch * size * size / 1e6
+    mpix = batch * corpus.LARGE_SIZE ** 2 / 1e6
 
-    pools = make_pools(steps, batch, size)
-    plan0 = prep_batch_sync(pools[0], cb)
-    hint = int(plan0.stream.shape[0])
-    plans = [plan0] + [
-        prep_batch_sync(p, cb, cap_hint=hint) for p in pools[1:]
-    ]
-    lay0 = (int(plan0.stream.shape[0]), plan0.n_chunks)
-    plans = [
-        p for p in plans
-        if (int(p.stream.shape[0]), p.n_chunks) == lay0
-    ]
-    print(
-        f"plans: {len(plans)} usable | F={plan0.n_chunks} chunks/img "
-        f"cb={cb} L={plan0.batch * plan0.n_chunks} lanes "
-        f"nblk={plan0.n_mcu * plan0.bpm}/img"
-    )
-    bufs = [
-        (
-            jax.device_put(p.stream),
-            jax.device_put(p.img_bit_start),
-            jax.device_put(p.img_bit_end),
-        )
-        for p in plans
-    ]
-    jax.block_until_ready(bufs)  # all uploads before any execution
-    digest = make_digest()
+    plan0 = prep_batch_sync(corpus.large_batch("plain", batch), cb)
+    print(f"F={plan0.n_chunks} chunks/img cb={cb} "
+          f"L={plan0.batch * plan0.n_chunks} lanes "
+          f"nblk={plan0.n_mcu * plan0.bpm}/img")
+    bufs = jax.block_until_ready((
+        jax.device_put(plan0.stream),
+        jax.device_put(plan0.img_bit_start),
+        jax.device_put(plan0.img_bit_end),
+    ))
 
-    def timed(label, fn, out_of=lambda r: r[0]):
-        tC = time.perf_counter()
-        r = fn(*bufs[0])
-        _ = int(digest(jnp.uint32(0), out_of(r).astype(jnp.int32)))
-        compile_s = time.perf_counter() - tC
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        r = jax.block_until_ready(fn(*bufs))
+        compile_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        acc = jnp.uint32(1)
-        # time bufs[1:] only: re-running the warmup (program, inputs)
-        # pair replays from the terminal cache in ~0.1 ms
-        for b in bufs[1:]:
-            acc = digest(acc, out_of(fn(*b)).astype(jnp.int32))
-        _ = int(acc)
-        dt = (time.perf_counter() - t1) / max(len(bufs) - 1, 1)
-        print(
-            f"{label}: {dt*1e3:7.1f} ms/batch ({mpix/dt:6.0f} MPix/s) "
-            f"[compile+first {compile_s:.0f}s]",
-            flush=True,
-        )
+        for _ in range(steps):
+            r = fn(*bufs)
+        jax.block_until_ready(r)
+        dt = (time.perf_counter() - t1) / steps
+        print(f"{label}: {dt * 1e3:7.2f} ms/batch ({mpix / dt:6.0f} MPix/s) "
+              f"[compile+first {compile_s:.0f}s]", flush=True)
         return r
 
-    r1 = timed(
-        "stage1 sync-rounds ", build_sync_decode_fn(plan0, _stage=1)
-    )
+    r1 = timed("stage1 sync-rounds ", build_sync_decode_fn(plan0, _stage=1))
     print(f"  converged rounds: {int(r1[1])}")
     timed("stage2 +record     ", build_sync_decode_fn(plan0, _stage=2))
     timed("stage3 +assembly   ", build_sync_decode_fn(plan0, _stage=3))
     timed("stage4 full        ", build_sync_decode_fn(plan0))
-    faulthandler.cancel_dump_traceback_later()
 
 
 if __name__ == "__main__":

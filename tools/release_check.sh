@@ -1,10 +1,8 @@
 #!/bin/sh
-# Release gate: fast suite + slow suite + multichip dryrun in one command.
-# Run before any bench milestone (README cadence); tee the output into
-# bench_logs/ for the round's evidence trail, e.g.:
-#   sh tools/release_check.sh 2>&1 | tee bench_logs/r4_release_check.log
-# Keep the TPU chip idle while this runs: the suites force the CPU
-# backend, but they occupy both host cores (CLAUDE.md compile gotcha).
+# Release gate: fast suite + slow suite + multichip dryrun in one command,
+# all on the CPU (the suites force the CPU backend).  Run before any bench
+# milestone (README cadence):
+#   sh tools/release_check.sh 2>&1 | tee release_check.log
 set -e
 cd "$(dirname "$0")/.."
 
